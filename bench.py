@@ -13,19 +13,36 @@ What each number measures:
 - the headline point-lookup timing exercises the HOST LATENCY TIER
   (zonemap pruning + native SIMD eq-scan of the one candidate segment) —
   point lookups touching <=4 segments never pay a device round trip;
-- "tpu_scan" exercises the TPU TIER: the fused Pallas bit-unpack +
-  aggregate kernel streaming the whole compressed table from HBM
-  (SELECT count(*), sum(i) FROM t1), the reference's ScanOOM-style
+- "device_scan" exercises the DEVICE TIER: the fused XLA bit-unpack +
+  aggregate kernel streaming the whole compressed table from device
+  memory (SELECT count(*), sum(i) FROM t1), the reference's ScanOOM-style
   workload (~4.1 s/100 scans there, benchmarks.csv:57-61);
 - "memory" is the reference's core claim: succinct vs plain footprint of
   the same data (reference shows 17-50% reduction, BASELINE.md).
 
-Scale with ADACOM_BENCH_SCALE (default 1.0 = the full 100M rows)."""
+Scale with ADACOM_BENCH_SCALE (default 1.0 = the full 100M rows). The
+JSON names the device, and on a GPU the card's name and power limit."""
 
 import json
 import os
+import subprocess
 import sys
 import time
+
+
+def device_label():
+    """JAX's device, plus nvidia-smi's name and power limit on a GPU."""
+    import jax
+
+    dev = jax.devices()[0]
+    label = f"{dev.platform} ({dev.device_kind}) x{len(jax.devices())}"
+    if dev.platform == "gpu":
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], check=True, capture_output=True,
+            text=True, timeout=60).stdout.strip().splitlines()[0]
+        label += f"; {card}"
+    return label
 
 
 def main():
@@ -37,8 +54,8 @@ def main():
         print(f"[bench +{time.time() - t_start:7.1f}s] {phase}",
               file=sys.stderr, flush=True)
 
-    from adacom_tpu.bench.runner import run_benchmark
-    from adacom_tpu.bench.succinct_benchmarks import SuccinctZipfDistribution
+    from adacom.bench.runner import run_benchmark
+    from adacom.bench.succinct_benchmarks import SuccinctZipfDistribution
 
     # ---- headline: Zipf point lookups over the compacted table ----
     mark("load start")
@@ -67,7 +84,7 @@ def main():
     mean_s = sum(records) / len(records)
     baseline_s = 17.49  # benchmarks.csv:32-36 mean, 5 hot runs
 
-    # ---- TPU tier: fused full-table compressed scan (Pallas kernel) ----
+    # ---- device tier: fused full-table compressed scan ----
     con = state["con"]
     n = state["n"]
     scan_sql = "SELECT count(*), sum(i) FROM t1"
@@ -78,11 +95,11 @@ def main():
     for _ in range(n_scan):
         con.query(scan_sql)
     scan_s = (time.perf_counter() - t0) / n_scan
-    mark("tpu scans done")
+    mark("device scans done")
     # reference SuccinctScanOOM: 100 such scans over 150M rows in ~4.10 s
     # (benchmarks.csv:57-61) -> per-scan time scaled to our row count
     ref_scan_s = 4.10 / 100 * (n / 150e6)
-    tpu_scan = {
+    device_scan = {
         "query": scan_sql,
         "time_s": round(scan_s, 5),
         "packed_gbps": round(succinct_bytes / scan_s / 1e9, 1),
@@ -93,7 +110,7 @@ def main():
     mark("cleanup done")
 
     # ---- memory story: plain (non-succinct) footprint of the same data ----
-    from adacom_tpu.bench.succinct_benchmarks import NonSuccinctZipfDistribution
+    from adacom.bench.succinct_benchmarks import NonSuccinctZipfDistribution
 
     b2 = NonSuccinctZipfDistribution(scale)
     state2 = {}
@@ -111,9 +128,10 @@ def main():
         "vs_baseline": round(mean_s / baseline_s, 4),
         "detail": {
             "tier": "host latency tier (zonemap + native eq-scan); "
-                    "tpu_scan below is the TPU tier",
+                    "device_scan below is the device tier",
+            "device": device_label(),
             "hot_runs_s": [round(r, 4) for r in records],
-            "tpu_scan": tpu_scan,
+            "device_scan": device_scan,
             "memory": {
                 "succinct_bytes": succinct_bytes,
                 "non_succinct_bytes": plain_bytes,

@@ -1,9 +1,9 @@
-// adacom_tpu native host runtime.
+// adacom native host runtime.
 //
 // C++ counterparts of the engine's host-side hot loops, mirroring where the
 // reference keeps its performance-critical code native (the whole reference
 // is C++; SURVEY.md §2). Exposed over a C ABI and loaded via ctypes
-// (adacom_tpu/native.py); every entry point has a NumPy fallback so the
+// (adacom/native.py); every entry point has a NumPy fallback so the
 // engine runs without the .so.
 //
 // Contents:
@@ -151,7 +151,7 @@ int64_t adacom_filter_eq_i64(const int64_t* vals, int64_t n, int64_t v,
 
 // Fused decode+filter directly over the packed words (scan over compressed
 // data without materializing the column — the AdaCom scan hot loop,
-// succinct.cpp:124-144, fused as the TPU kernels do).
+// succinct.cpp:124-144, fused as the device scan kernels do).
 int64_t adacom_packed_filter_eq_u32(const uint32_t* words, int64_t n,
                                     int width, uint32_t min_factor,
                                     uint32_t v, int64_t* idx_out) {

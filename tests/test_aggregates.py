@@ -5,7 +5,7 @@ holistic}/)."""
 import numpy as np
 import pytest
 
-import adacom_tpu as at
+import adacom as at
 
 
 @pytest.fixture()

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from adacom_tpu.bench import runner
-from adacom_tpu.bench import succinct_benchmarks  # noqa: F401 (registers)
-from adacom_tpu.bench.zipf import ZipfSampler
+from adacom.bench import runner
+from adacom.bench import succinct_benchmarks  # noqa: F401 (registers)
+from adacom.bench.zipf import ZipfSampler
 
 
 def test_zipf_sampler_bounds_and_skew():

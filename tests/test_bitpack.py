@@ -7,7 +7,7 @@ the tests it should have had, for our layout.
 import numpy as np
 import pytest
 
-from adacom_tpu.ops import bitpack
+from adacom.ops import bitpack
 
 
 def _roundtrip(codes: np.ndarray, width: int):

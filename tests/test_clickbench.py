@@ -6,8 +6,8 @@ import sqlite3
 
 import pytest
 
-import adacom_tpu as at
-from adacom_tpu.bench import clickbench as cb
+import adacom as at
+from adacom.bench import clickbench as cb
 
 
 @pytest.fixture(scope="module")

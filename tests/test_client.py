@@ -10,9 +10,9 @@ import sys
 import numpy as np
 import pytest
 
-import adacom_tpu as at
-from adacom_tpu import dbapi
-from adacom_tpu.main.connection import SQLError
+import adacom as at
+from adacom import dbapi
+from adacom.main.connection import SQLError
 
 
 def _db():
@@ -124,7 +124,7 @@ def test_dbapi_context_and_iteration():
 
 
 def test_shell_pipe(monkeypatch, capsys, tmp_path):
-    from adacom_tpu import shell
+    from adacom import shell
 
     sh = shell.Shell()
     sh.mode = "csv"
@@ -145,7 +145,7 @@ def test_shell_pipe(monkeypatch, capsys, tmp_path):
 def test_using_sample():
     import numpy as np
 
-    import adacom_tpu as at
+    import adacom as at
 
     db = at.Database()
     con = db.connect()
@@ -167,7 +167,7 @@ def test_using_sample():
 def test_arrow_and_dataframe_results():
     import numpy as np
 
-    import adacom_tpu as at
+    import adacom as at
 
     db = at.Database()
     con = db.connect()
@@ -188,8 +188,8 @@ def test_prepared_statements():
     (reference PreparedStatement, src/main/prepared_statement.cpp)."""
     import numpy as np
 
-    import adacom_tpu as at
-    from adacom_tpu.main.connection import SQLError
+    import adacom as at
+    from adacom.main.connection import SQLError
 
     db = at.Database()
     con = db.connect()
@@ -225,7 +225,7 @@ def test_relation_api():
     """Composable Relation API (reference src/main/relation.cpp)."""
     import numpy as np
 
-    import adacom_tpu as at
+    import adacom as at
 
     db = at.Database()
     con = db.connect()

@@ -3,14 +3,14 @@
 The reference has per-codec sqllogictests under
 test/sql/storage/compression/{bitpacking,rle,dictionary,...} plus
 compression_selection.test / compression_force_selection.test; these tests
-are the TPU build's equivalent, run over the generic codec registry."""
+are this engine's equivalent, run over the generic codec registry."""
 
 import numpy as np
 import pytest
 
-import adacom_tpu as at
-from adacom_tpu import types as tt
-from adacom_tpu.ops import bitpack, codecs
+import adacom as at
+from adacom import types as tt
+from adacom.ops import bitpack, codecs
 
 
 def _roundtrip(codec_name, values, ltype=tt.INTEGER):
@@ -65,14 +65,9 @@ def test_rle_floats():
 
 
 def test_alp_exact_decimals():
-    """ALP contract: the packed integer planes are exact on every backend;
-    the f64 decode is bit-exact on IEEE backends (CPU) and via the host
-    materialization path (decode_full_host) everywhere. On TPU, x64 f64 is
-    an f32-pair emulation (~49 mantissa bits; even a plain h2d->d2h f64
-    round-trip is lossy), so the DEVICE decode is only exact to ~5e-13
-    relative — the engine materializes float results from the host path."""
-    import jax
-
+    """ALP contract: the packed integer planes are exact, and the f64
+    decode is bit-exact both on the device (IEEE float64 on CPU and GPU)
+    and via the host materialization path (decode_full_host)."""
     rng = np.random.default_rng(11)
     v = (rng.integers(-10_000, 10_000, 8000) / 100.0).astype(np.float64)
     cfg = at.DBConfig()
@@ -82,19 +77,13 @@ def test_alp_exact_decimals():
     # host materialization: bit-exact on every backend
     np.testing.assert_array_equal(codecs.decode_full_host(enc, v.dtype), v)
     dev = np.asarray(codecs.decode_full(enc, v.dtype))
-    if jax.default_backend() == "tpu":
-        np.testing.assert_allclose(dev, v, rtol=5e-13)
-    else:
-        np.testing.assert_array_equal(dev, v)
+    np.testing.assert_array_equal(dev, v)
     rng2 = np.random.default_rng(7)
     idx = rng2.integers(0, len(v), size=64)
     import jax.numpy as jnp
 
     got = np.asarray(codecs.gather(enc, jnp.asarray(idx)))
-    if jax.default_backend() == "tpu":
-        np.testing.assert_allclose(got, v[idx], rtol=5e-13)
-    else:
-        np.testing.assert_array_equal(got, v[idx])
+    np.testing.assert_array_equal(got, v[idx])
     assert enc.nbytes < v.nbytes / 2
 
 
@@ -178,7 +167,7 @@ def test_checkpoint_preserves_codec(tmp_path):
     data = np.repeat(np.arange(40, dtype=np.int64), 500)
     db, con = _mk(data, codec="rle")
     path = str(tmp_path / "ckpt")
-    from adacom_tpu.storage.checkpoint import write_checkpoint
+    from adacom.storage.checkpoint import write_checkpoint
 
     write_checkpoint(db, path)
     db.close()

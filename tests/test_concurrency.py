@@ -12,7 +12,7 @@ import threading
 import numpy as np
 import pytest
 
-import adacom_tpu as at
+import adacom as at
 
 
 @pytest.fixture
@@ -147,7 +147,7 @@ def test_mvcc_reader_sees_only_committed():
     (reference chunk_info.cpp visibility + LocalStorage semantics)."""
     import numpy as np
 
-    import adacom_tpu as at
+    import adacom as at
 
     db = at.Database(config=at.DBConfig(segment_rows=1024))
     w = db.connect()
@@ -178,8 +178,8 @@ def test_mvcc_write_write_conflict():
     (reference optimistic-conflict TransactionException)."""
     import numpy as np
 
-    import adacom_tpu as at
-    from adacom_tpu.main.connection import SQLError
+    import adacom as at
+    from adacom.main.connection import SQLError
 
     db = at.Database()
     a = db.connect()
@@ -208,7 +208,7 @@ def test_mvcc_write_write_conflict():
 def test_mvcc_rollback_restores_and_releases():
     import numpy as np
 
-    import adacom_tpu as at
+    import adacom as at
 
     db = at.Database(config=at.DBConfig(segment_rows=1024))
     w = db.connect()

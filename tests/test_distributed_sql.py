@@ -10,8 +10,8 @@ import jax
 import numpy as np
 import pytest
 
-import adacom_tpu as at
-from adacom_tpu.parallel import mesh as pmesh
+import adacom as at
+from adacom.parallel import mesh as pmesh
 
 pytestmark = pytest.mark.mesh
 

@@ -9,7 +9,7 @@ import math
 import numpy as np
 import pytest
 
-import adacom_tpu as at
+import adacom as at
 
 
 @pytest.fixture()

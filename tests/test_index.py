@@ -4,8 +4,8 @@ point lookups, uniqueness enforcement, index-scan rewrite, persistence."""
 import numpy as np
 import pytest
 
-import adacom_tpu as at
-from adacom_tpu.main.connection import SQLError
+import adacom as at
+from adacom.main.connection import SQLError
 
 
 def _db(segment_rows=4096, path=None):
@@ -118,7 +118,7 @@ def test_composite_index_eq_lookup():
     hash-sorted permutation (reference ART composite keys, art.cpp:929)."""
     import numpy as np
 
-    import adacom_tpu as at
+    import adacom as at
 
     db = at.Database(config=at.DBConfig(segment_rows=2048))
     con = db.connect()
@@ -146,7 +146,7 @@ def test_index_join_probes_instead_of_scanning():
     only matching inner rows (dist_stats['index_join'] proves the path)."""
     import numpy as np
 
-    import adacom_tpu as at
+    import adacom as at
 
     db = at.Database(config=at.DBConfig(segment_rows=4096))
     con = db.connect()

@@ -1,13 +1,15 @@
-"""Multi-plane multi-aggregate grouped fused scan (ops/pallas_scan.py
-multi_grouped_scan_table + exec/executor.py _try_pallas_multi_agg): the
-TPC-H Q1-class device tier. Every result is compared against the host
-tier on the same data (reference: the answer-CSV verification ethos,
+"""TPC-H Q1-class multi-aggregate scans (several SUM/COUNT aggregates over
+products of DECIMAL columns, conjunctive range filters, a small dense group
+domain) on the device scan-aggregate tier. Every result is compared with
+sqlite3 on the same data (reference: the answer-CSV verification ethos,
 benchmark/tpch/sf1)."""
 
-import numpy as np
-import pytest
+import math
+import sqlite3
 
-import adacom_tpu as at
+import numpy as np
+
+import adacom as at
 
 
 def _mkdb(**cfg_kw):
@@ -20,12 +22,12 @@ def _mkdb(**cfg_kw):
 
 
 def _fill(con, n=7000, seed=3):
+    """Fill li in the engine; returns a sqlite3 copy (DECIMAL as REAL)."""
     rng = np.random.default_rng(seed)
     con.query("CREATE TABLE li(qty DECIMAL(12,2), price DECIMAL(12,2), "
               "disc DECIMAL(12,2), tax DECIMAL(12,2), rf VARCHAR, "
               "ls VARCHAR, ship DATE)")
-    app = con.appender("li")
-    app.append_columns({
+    cols = {
         "qty": rng.integers(100, 5001, n),
         "price": rng.integers(90000, 14_000_000, n),
         "disc": rng.integers(0, 11, n),
@@ -33,8 +35,19 @@ def _fill(con, n=7000, seed=3):
         "rf": rng.choice(["A", "N", "R"], n).astype(object),
         "ls": rng.choice(["F", "O"], n).astype(object),
         "ship": rng.integers(10000, 11000, n),
-    })
+    }
+    app = con.appender("li")
+    app.append_columns(cols)
     app.close()
+    lite = sqlite3.connect(":memory:")
+    lite.execute("CREATE TABLE li(qty REAL, price REAL, disc REAL, tax REAL, "
+                 "rf TEXT, ls TEXT, ship INTEGER)")
+    dec = [c / 100.0 for c in (cols["qty"], cols["price"], cols["disc"],
+                               cols["tax"])]
+    lite.executemany("INSERT INTO li VALUES (?, ?, ?, ?, ?, ?, ?)", zip(
+        *(d.tolist() for d in dec), cols["rf"].tolist(),
+        cols["ls"].tolist(), cols["ship"].tolist()))
+    return lite
 
 
 Q1ISH = """
@@ -45,41 +58,42 @@ FROM li WHERE ship <= 10800 GROUP BY rf, ls ORDER BY rf, ls
 
 
 def _cmp(r1, r2):
+    """Integers and strings exact; floats at rel_tol=1e-9 (sqlite3 sums
+    the REAL copies in another order)."""
     assert len(r1) == len(r2)
     for a, c in zip(r1, r2):
         for x, y in zip(a, c):
-            if isinstance(x, float):
-                assert abs(x - y) < 1e-9 * max(1.0, abs(y)), (a, c)
+            if isinstance(x, (float, np.floating)):
+                assert math.isclose(x, y, rel_tol=1e-9), (a, c)
             else:
                 assert x == y, (a, c)
 
 
+def _device(db, con, sql):
+    before = db.dist_stats.get("device_scan_agg", 0)
+    rows = con.query(sql).fetchall()
+    assert db.dist_stats.get("device_scan_agg", 0) > before, \
+        "device tier did not engage"
+    return rows
+
+
 def test_q1_shape_matches_host():
     db, con = _mkdb()
-    _fill(con)
+    lite = _fill(con)
     db.catalog.get_column_segment_catalog().compact_all_segments()
-    r1 = con.query(Q1ISH).fetchall()
-    assert db.dist_stats.get("pallas_multi_agg", 0) >= 1, \
-        "device tier did not engage"
-    db.config.pallas_scan_enabled = False
-    r2 = db.connect().query(Q1ISH).fetchall()
-    _cmp(r1, r2)
+    _cmp(_device(db, con, Q1ISH), lite.execute(Q1ISH).fetchall())
     db.close()
 
 
 def test_ungrouped_multi_filter_sum_matches_host():
     """Q6 shape: sum(price*disc) under range filters on THREE columns."""
     db, con = _mkdb()
-    _fill(con)
+    lite = _fill(con)
     db.catalog.get_column_segment_catalog().compact_all_segments()
     q = ("SELECT sum(price * disc), count(*) FROM li "
-         "WHERE ship >= 10100 AND ship < 10400 AND disc >= 2 "
-         "AND disc <= 6 AND qty < 2400")
-    r1 = con.query(q).fetchone()
-    assert db.dist_stats.get("pallas_multi_agg", 0) >= 1
-    db.config.pallas_scan_enabled = False
-    r2 = db.connect().query(q).fetchone()
-    _cmp([r1], [r2])
+         "WHERE ship >= 10100 AND ship < 10400 AND disc >= 0.02 "
+         "AND disc <= 0.06 AND qty < 24")
+    _cmp(_device(db, con, q), lite.execute(q).fetchall())
     db.close()
 
 
@@ -95,31 +109,26 @@ def test_empty_predicate_and_absent_groups():
 
 def test_uncompacted_falls_back_to_host():
     db, con = _mkdb()
-    _fill(con, n=3000)
-    # no compaction: the tier must decline, results still correct
-    r1 = con.query(Q1ISH).fetchall()
-    db.config.pallas_scan_enabled = False
-    r2 = db.connect().query(Q1ISH).fetchall()
-    _cmp(r1, r2)
+    lite = _fill(con, n=3000)
+    # no compaction: plain segments, results still correct
+    _cmp(con.query(Q1ISH).fetchall(), lite.execute(Q1ISH).fetchall())
     db.close()
 
 
 def test_deletes_fall_back_and_stay_correct():
     db, con = _mkdb()
-    _fill(con, n=4000)
+    lite = _fill(con, n=4000)
     db.catalog.get_column_segment_catalog().compact_all_segments()
-    con.query("DELETE FROM li WHERE qty < 1000")
-    r1 = con.query(Q1ISH).fetchall()
-    db.config.pallas_scan_enabled = False
-    r2 = db.connect().query(Q1ISH).fetchall()
-    _cmp(r1, r2)
+    con.query("DELETE FROM li WHERE qty < 10")
+    lite.execute("DELETE FROM li WHERE qty < 10")
+    _cmp(con.query(Q1ISH).fetchall(), lite.execute(Q1ISH).fetchall())
     db.close()
 
 
 def test_poly_decompose():
-    from adacom_tpu.exec.executor import _poly_decompose
-    from adacom_tpu.sql import bound as b
-    from adacom_tpu import types as tt
+    from adacom.exec.executor import _poly_decompose
+    from adacom.sql import bound as b
+    from adacom import types as tt
 
     dec2 = tt.DECIMAL(12, 2)
     price = b.BColumn(dec2, 1, "price")
@@ -185,7 +194,7 @@ def test_count_star_plain_wide_segments():
 
 
 def test_twelve_group_domain_rides_multi_tier():
-    """Domains in (8, 16] ride the widened one-hot tier."""
+    """A 12-group domain with a product aggregate on the device tier."""
     cfg = at.DBConfig()
     cfg.segment_rows = 4096
     db = at.Database(config=cfg)
@@ -196,19 +205,21 @@ def test_twelve_group_domain_rides_multi_tier():
         con.query("CREATE TABLE t(g INTEGER, v DECIMAL(12,2), "
                   "w DECIMAL(12,2))")
         app = con.appender("t")
-        app.append_columns({"g": rng.integers(0, 12, n).astype(np.int32),
-                            "v": rng.integers(0, 10_000, n),
-                            "w": rng.integers(0, 50, n)})
+        g = rng.integers(0, 12, n).astype(np.int32)
+        v = rng.integers(0, 10_000, n)
+        w = rng.integers(0, 50, n)
+        app.append_columns({"g": g, "v": v, "w": w})
         app.close()
         db.catalog.get_column_segment_catalog().compact_all_segments()
         q = ("SELECT g, sum(v * w), sum(v), count(*) FROM t "
              "WHERE v >= 10 GROUP BY g ORDER BY g")
-        r1 = con.query(q).fetchall()
+        r1 = _device(db, con, q)
         assert len(r1) == 12
-        assert db.dist_stats.get("pallas_multi_agg", 0) >= 1
-        db.config.pallas_scan_enabled = False
-        r2 = db.connect().query(q).fetchall()
-        assert r1 == r2
+        keep = v >= 1000  # v >= 10.00 at scale 2
+        exp = [(k, int((v * w)[keep & (g == k)].sum()) / 10_000,
+                int(v[keep & (g == k)].sum()) / 100,
+                int((keep & (g == k)).sum())) for k in range(12)]
+        _cmp(r1, exp)
     finally:
         db.close()
 

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from adacom_tpu import native
-from adacom_tpu.ops import bitpack
+from adacom import native
+from adacom.ops import bitpack
 
 
 needs_native = pytest.mark.skipif(not native.available(), reason="no native lib")
@@ -67,7 +67,7 @@ def test_native_zipf():
 
 def test_groupby_i64_matches_unique():
     import numpy as np
-    from adacom_tpu import native
+    from adacom import native
 
     keys = np.random.default_rng(3).integers(-50, 50, 100_000).astype(np.int64)
     gid, first = native.groupby_i64(keys)
@@ -81,7 +81,7 @@ def test_groupby_i64_matches_unique():
 
 def test_group_sum_exact():
     import numpy as np
-    from adacom_tpu import native
+    from adacom import native
 
     gid = np.random.default_rng(4).integers(0, 7, 50_000).astype(np.int64)
     vals = np.random.default_rng(5).integers(-2**40, 2**40, 50_000)
@@ -92,7 +92,7 @@ def test_group_sum_exact():
 
 def test_argsort_u64_radix():
     import numpy as np
-    from adacom_tpu import native
+    from adacom import native
 
     keys = np.random.default_rng(6).integers(0, 2**63, 200_000).astype(np.uint64)
     idx = native.argsort_u64(keys)

@@ -1,265 +1,222 @@
-"""Pallas fused scan kernel vs the XLA decode path (exactness golden)."""
+"""Fused scan-aggregate device tier (decode + filter + aggregate in one
+XLA kernel per segment pool, exec/executor.py _scan_agg_batches) against
+NumPy: widths 1-32, ragged tails, NULL planes, empty and equality ranges,
+and the grouped dense-domain shape."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import adacom_tpu  # noqa: F401  (jax config)
-from adacom_tpu import types as tt
-from adacom_tpu.ops import bitpack, pallas_scan, segcodec
+import adacom as at
+
+
+def _table(cols, segment_rows=4096, types=None, validity=None):
+    """Database with table t(cols...) compacted to succinct segments."""
+    cfg = at.DBConfig()
+    cfg.segment_rows = segment_rows
+    cfg.host_scan_segment_limit = 0
+    db = at.Database(config=cfg)
+    con = db.connect()
+    types = types or {c: "INTEGER" for c in cols}
+    con.query("CREATE TABLE t(" + ", ".join(
+        f"{c} {types[c]}" for c in cols) + ")")
+    app = con.appender("t")
+    app.append_columns(cols, validity=validity)
+    app.close()
+    db.catalog.get_column_segment_catalog().compact_all_segments()
+    return db, con
+
+
+def _device(db, con, sql):
+    """Run sql and assert the device scan-aggregate tier served it."""
+    before = db.dist_stats.get("device_scan_agg", 0)
+    rows = con.query(sql).fetchall()
+    assert db.dist_stats.get("device_scan_agg", 0) > before, \
+        "device scan-aggregate tier did not engage"
+    return rows
 
 
 @pytest.mark.parametrize("width_span", [1, 250, 4000, (1 << 20) - 1])
 def test_scan_sum_count_matches_numpy(width_span):
-    n = 65536  # n_lanes = 2048, multiple of TILE_L
+    n = 65536
     rng = np.random.default_rng(width_span)
     vals = (77 + rng.integers(0, width_span + 1, n)).astype(np.uint32)
-    packed = segcodec.pack_segment(jnp.asarray(vals), tt.UINTEGER)
-    (w,) = packed.widths
-    if w == 0:
-        pytest.skip("constant plane")
-    assert pallas_scan.supported(w, packed.n_lanes)
+    db, con = _table({"i": vals}, segment_rows=n,
+                     types={"i": "UINTEGER"})
     lo, hi = 100, 77 + width_span // 2
-    s, c = pallas_scan.scan_sum_count(packed.words[0], packed.min_factor,
-                                      n, lo, hi)
+    sql = f"SELECT count(*), sum(i) FROM t WHERE i >= {lo} AND i <= {hi}"
+    # an empty range prunes every segment by zonemap: no device launch
+    (r,) = _device(db, con, sql) if lo <= hi else con.query(sql).fetchall()
     m = (vals >= lo) & (vals <= hi)
-    assert int(c) == int(m.sum())
-    assert int(s) == int(vals[m].astype(np.int64).sum())
+    assert int(r[0]) == int(m.sum())
+    assert (r[1] is None and not m.any()) or \
+        int(r[1]) == int(vals[m].astype(np.int64).sum())
+    db.close()
+
+
+@pytest.mark.parametrize("width", [1, 7, 8, 16, 17, 24, 31, 32])
+def test_scan_widths_match_numpy(width):
+    """Every packed width: min/max/sum/count under a range predicate."""
+    rng = np.random.default_rng(width)
+    n = 3 * 4096 + 123
+    span = (1 << width) - 1
+    vals = rng.integers(0, span + 1, n, dtype=np.int64).astype(np.uint32)
+    vals[0], vals[1] = 0, span  # pin the segment span to `width` bits
+    db, con = _table({"i": vals}, types={"i": "UINTEGER"})
+    lo, hi = span // 5, span - span // 7
+    (r,) = _device(db, con, "SELECT count(*), sum(i), min(i), max(i) "
+                   f"FROM t WHERE i >= {lo} AND i <= {hi}")
+    v = vals.astype(np.int64)
+    m = (v >= lo) & (v <= hi)
+    assert tuple(int(x) for x in r) == (
+        int(m.sum()), int(v[m].sum()), int(v[m].min()), int(v[m].max()))
+    db.close()
 
 
 def test_scan_tail_masking():
     n = 65536 - 13  # count below padded size: tail rows must not leak
     vals = np.full(n, 5, dtype=np.uint32)
-    packed = segcodec.pack_segment(jnp.asarray(vals), tt.UINTEGER,
-                                   vmin=0, vmax=8)
-    (w,) = packed.widths
-    if packed.n_lanes % pallas_scan.TILE_L:
-        pytest.skip("unaligned lanes")
-    s, c = pallas_scan.scan_sum_count(packed.words[0], packed.min_factor,
-                                      n, 0, 10)
-    assert int(c) == n and int(s) == 5 * n
+    vals[0] = 8
+    db, con = _table({"i": vals}, segment_rows=65536,
+                     types={"i": "UINTEGER"})
+    (r,) = _device(db, con,
+                   "SELECT count(*), sum(i) FROM t WHERE i >= 0 AND i <= 10")
+    assert (int(r[0]), int(r[1])) == (n, 5 * n + 3)
+    db.close()
 
 
 def test_scan_equality_probe():
     n = 131072
     rng = np.random.default_rng(9)
     vals = rng.integers(0, 1000, n).astype(np.uint32)
-    packed = segcodec.pack_segment(jnp.asarray(vals), tt.UINTEGER)
-    (w,) = packed.widths
-    s, c = pallas_scan.scan_sum_count(packed.words[0], packed.min_factor,
-                                      n, 123, 123)
+    db, con = _table({"i": vals}, segment_rows=65536,
+                     types={"i": "UINTEGER"})
+    (r,) = _device(db, con, "SELECT count(*), sum(i) FROM t WHERE i = 123")
     m = vals == 123
-    assert int(c) == int(m.sum()) and int(s) == 123 * int(m.sum())
+    assert (int(r[0]), int(r[1])) == (int(m.sum()), 123 * int(m.sum()))
+    db.close()
 
 
 def test_scan_table_multi_segment_ragged():
-    """Stacked multi-segment scan w/ a ragged tail + signed minima."""
+    """Multi-segment scan w/ a ragged tail segment + signed minima."""
     rng = np.random.default_rng(17)
-    seg_rows = [8192, 8192, 5000]  # tail segment: fewer lanes
-    words_l, counts, mins, alldata, lanes = [], [], [], [], []
-    for k, n in enumerate(seg_rows):
-        vals = (-4000 + k * 3000 + rng.integers(0, 1 << 11, n)).astype(np.int32)
-        alldata.append(vals)
-        p = segcodec.pack_segment(jnp.asarray(vals), tt.INTEGER)
-        assert p.widths == (11,)
-        L_pad = -(-p.n_lanes // pallas_scan.TILE_L) * pallas_scan.TILE_L
-        w = p.words[0]
-        if w.shape[1] < L_pad:
-            w = jnp.pad(w, ((0, 0), (0, L_pad - w.shape[1])))
-        words_l.append(w)
-        counts.append(p.count)
-        mins.append(p.min_factor)
-        lanes.append(p.n_lanes)
-    words = jnp.stack(words_l)
-    a = np.concatenate(alldata).astype(np.int64)
+    parts = [(-4000 + k * 3000 + rng.integers(0, 1 << 11, n)).astype(np.int32)
+             for k, n in enumerate([8192, 8192, 5000])]
+    vals = np.concatenate(parts)
+    db, con = _table({"i": vals}, segment_rows=8192)
+    a = vals.astype(np.int64)
     for lo, hi in [(-3500, 500), (None, None), (10_000, 20_000)]:
-        s, c, mn, mx = pallas_scan.scan_table(words, counts, mins, lo, hi,
-                                              lanes=lanes)
-        m = np.ones(len(a), bool)
-        if lo is not None:
-            m &= (a >= lo) & (a <= hi)
-        assert int(c) == int(m.sum())
-        assert int(s) == int(a[m].sum())
+        where = "" if lo is None else f" WHERE i >= {lo} AND i <= {hi}"
+        sql = f"SELECT count(*), sum(i), min(i), max(i) FROM t{where}"
+        m = np.ones(len(a), bool) if lo is None else (a >= lo) & (a <= hi)
+        # zonemaps prune every segment for a range outside the data
+        (r,) = _device(db, con, sql) if m.any() else con.query(sql).fetchall()
+        assert int(r[0]) == int(m.sum())
         if m.any():
-            assert (mn, mx) == (int(a[m].min()), int(a[m].max()))
+            assert tuple(int(x) for x in r[1:]) == (
+                int(a[m].sum()), int(a[m].min()), int(a[m].max()))
+        else:
+            assert r[1:] == (None, None, None)
+    db.close()
 
 
 def test_engine_pallas_scan_agg():
-    """SELECT sum/count/min/max through the engine's Pallas fast path."""
-    import adacom_tpu as at
-
-    cfg = at.DBConfig()
-    cfg.segment_rows = 4096
-    cfg.pallas_scan_enabled = True
-    cfg.host_scan_segment_limit = 0
-    db = at.Database(config=cfg)
-    con = db.connect()
-    con.query("CREATE TABLE t(i INTEGER)")
+    """SELECT sum/count/min/max through the device scan-aggregate tier."""
     rng = np.random.default_rng(23)
     vals = rng.integers(-1000, 50_000, 10_000).astype(np.int32)
-    app = con.appender("t")
-    app.append_column("i", vals)
-    app.close()
-    db.catalog.get_column_segment_catalog().compact_all_segments()
-    r = con.query(
-        "SELECT count(*), sum(i), min(i), max(i) FROM t WHERE i >= 100 AND i < 30000"
-    ).fetchone()
+    db, con = _table({"i": vals})
+    (r,) = _device(db, con, "SELECT count(*), sum(i), min(i), max(i) FROM t "
+                   "WHERE i >= 100 AND i < 30000")
     m = (vals >= 100) & (vals < 30000)
     assert tuple(int(x) for x in r) == (
         int(m.sum()), int(vals[m].astype(np.int64).sum()),
         int(vals[m].min()), int(vals[m].max()))
-    # empty range + no-filter variants
-    r = con.query("SELECT count(i), sum(i) FROM t WHERE i = 99999").fetchone()
+    # empty range (pruned by zonemaps) + no-filter variants
+    (r,) = con.query("SELECT count(i), sum(i) FROM t WHERE i = 99999"
+                     ).fetchall()
     assert int(r[0]) == 0 and r[1] is None
-    r = con.query("SELECT sum(i), count(*) FROM t").fetchone()
-    assert (int(r[0]), int(r[1])) == (int(vals.astype(np.int64).sum()), len(vals))
+    (r,) = _device(db, con, "SELECT sum(i), count(*) FROM t")
+    assert (int(r[0]), int(r[1])) == (int(vals.astype(np.int64).sum()),
+                                      len(vals))
     db.close()
 
 
 def test_driver_scale_kernel_builds():
-    """Compile the table-scan kernel at BENCH-scale shapes without data.
+    """Lower the pooled scan-aggregate kernel at the 100M-row bench shape
+    (2048 segments of 65536 rows, 16-bit packed plane) without data."""
+    from adacom.exec import executor as ex
 
-    Rounds 2 and 3 both shipped kernels that passed small-shape tests and
-    died at the driver's 100M-row scale (r02: x64 lowering, r03: SMEM
-    overflow from the whole (2048, 8) scalar table in one block). This
-    builds the exact bench shape (n_seg=2048, width=16, lane8=256 — the
-    shape in BENCH_r03's crash dump) via .lower(); on the TPU lane it also
-    .compile()s, which is where Mosaic enforces the 1 MB SMEM budget.
-    """
-    from adacom_tpu.ops import pallas_scan
-
-    for width, lane8, n_seg in [(16, 256, 2048), (17, 128, 2048)]:
-        blk = pallas_scan._seg_blk_for(width, lane8, n_seg)
-        run = pallas_scan._build_runner(width, lane8, n_seg, blk,
-                                        True, True)
-        shapes = (
-            jax.ShapeDtypeStruct((n_seg, width, 8, lane8), jnp.uint32),
-            jax.ShapeDtypeStruct((n_seg, 8), jnp.uint32),
-            jax.ShapeDtypeStruct((n_seg,), jnp.int64),
-        )
-        lowered = run.lower(*shapes)
-        if jax.default_backend() == "tpu":
-            lowered.compile()  # Mosaic pass: catches SMEM/VMEM overflows
+    lanes, n_seg = 2048, 2048
+    meta = (("packed", ((16,), lanes, "uint32")), None)
+    kern = ex._build_pooled_scan_agg_kernel(
+        (meta,), [np.uint32], None, 32 * lanes,
+        [("count", None, np.int64)], [], None)
+    lowered = kern.lower(
+        jax.ShapeDtypeStruct((n_seg,), jnp.int32), (), (),
+        jax.ShapeDtypeStruct((n_seg, 16, lanes), jnp.uint32),
+        jax.ShapeDtypeStruct((n_seg,), jnp.uint32))
+    assert "reduce" in lowered.as_text()
 
 
 def test_grouped_scan_table_matches_numpy(rng):
-    """Fused grouped dense-domain aggregate (perfect-hash-aggregate
-    analogue): per-group sum/count over packed group + value planes."""
-    from adacom_tpu import types as tt
-    from adacom_tpu.ops import segcodec
-
-    seg_rows = 2048
-    n_seg = 5
-    G = 6
-    gw_packs, vw_packs, gs, vs = [], [], [], []
-    for s in range(n_seg):
-        g = rng.integers(0, G, seg_rows).astype(np.uint32)
-        v = (10_000 + rng.integers(0, 50_000, seg_rows)).astype(np.uint32)
-        gs.append(g)
-        vs.append(v)
-        gw_packs.append(segcodec.pack_segment(jnp.asarray(g), tt.UINTEGER,
-                                              vmin=0, vmax=G - 1))
-        vw_packs.append(segcodec.pack_segment(jnp.asarray(v), tt.UINTEGER,
-                                              vmin=10_000, vmax=60_000))
-    gw = gw_packs[0].widths[0]
-    vw = vw_packs[0].widths[0]
-    assert all(p.widths == (gw,) for p in gw_packs)
-    gwords = jnp.stack([p.words[0] for p in gw_packs])
-    vwords = jnp.stack([p.words[0] for p in vw_packs])
-    from adacom_tpu.ops import pallas_scan
-
+    """Grouped dense-domain aggregate (perfect-hash-aggregate analogue):
+    per-group sum/count over packed group + value planes."""
+    n_seg, seg_rows, G = 5, 2048, 6
+    g = rng.integers(0, G, n_seg * seg_rows).astype(np.uint32)
+    v = (10_000 + rng.integers(0, 50_000, n_seg * seg_rows)).astype(np.uint32)
+    db, con = _table({"g": g, "v": v}, segment_rows=seg_rows,
+                     types={"g": "UINTEGER", "v": "UINTEGER"})
     for lo, hi in [(None, None), (20_000, 45_000)]:
-        out = pallas_scan.grouped_scan_table(
-            gwords, vwords,
-            counts=[seg_rows] * n_seg,
-            gmins=[p.min_factor for p in gw_packs],
-            vmins=[p.min_factor for p in vw_packs],
-            n_groups=G, lo=lo, hi=hi)
-        allg = np.concatenate(gs).astype(np.int64)
-        allv = np.concatenate(vs).astype(np.int64)
-        keep = np.ones(len(allv), bool)
-        if lo is not None:
-            keep = (allv >= lo) & (allv <= hi)
-        for g in range(G):
-            m = keep & (allg == g)
-            assert out[g, 1] == m.sum(), (g, lo)
-            assert out[g, 0] == allv[m].sum(), (g, lo)
+        where = "" if lo is None else f" WHERE v >= {lo} AND v <= {hi}"
+        r = _device(db, con, f"SELECT g, sum(v), count(*) FROM t{where} "
+                    "GROUP BY g ORDER BY g")
+        keep = np.ones(len(v), bool) if lo is None else (v >= lo) & (v <= hi)
+        exp = [(k, int(v[keep & (g == k)].astype(np.int64).sum()),
+                int((keep & (g == k)).sum())) for k in range(G)]
+        assert [tuple(int(x) for x in row) for row in r] == exp, (lo, hi)
+    db.close()
 
 
 def test_engine_pallas_grouped_agg():
-    """SELECT g, sum(v), count(*), avg(v) GROUP BY g through the Pallas
-    grouped dense-domain tier (perfect-hash-aggregate analogue)."""
-    import adacom_tpu as at
-    from adacom_tpu.ops import pallas_scan as ps
-
-    cfg = at.DBConfig()
-    cfg.segment_rows = 4096
-    cfg.pallas_scan_enabled = True
-    db = at.Database(config=cfg)
-    con = db.connect()
-    con.query("CREATE TABLE t(g INTEGER, v INTEGER)")
+    """SELECT g, sum(v), count(*), avg(v) GROUP BY g through the grouped
+    dense-domain device tier (perfect-hash-aggregate analogue)."""
     rng = np.random.default_rng(31)
     g = rng.integers(0, 5, 20_000).astype(np.int32)
     v = rng.integers(100, 90_000, 20_000).astype(np.int32)
-    app = con.appender("t")
-    app.append_columns({"g": g, "v": v})
-    app.close()
-    db.catalog.get_column_segment_catalog().compact_all_segments()
-    calls_before = ps._build_grouped_runner.cache_info().misses
-    r = con.query("SELECT g, sum(v), count(*), avg(v) FROM t "
-                  "GROUP BY g ORDER BY g").fetchall()
-    assert ps._build_grouped_runner.cache_info().misses > calls_before, \
-        "grouped Pallas tier did not engage"
+    db, con = _table({"g": g, "v": v})
+    r = _device(db, con, "SELECT g, sum(v), count(*), avg(v) FROM t "
+                "GROUP BY g ORDER BY g")
     assert len(r) == 5
     for row in r:
-        gi = int(row[0])
-        m = g == gi
+        m = g == int(row[0])
         assert int(row[1]) == int(v[m].astype(np.int64).sum())
         assert int(row[2]) == int(m.sum())
         assert abs(float(row[3]) - v[m].mean()) < 1e-6
     # filtered variant (value-range predicate folds into the kernel)
-    r = con.query("SELECT g, count(*), sum(v) FROM t "
-                  "WHERE v >= 10000 AND v < 50000 GROUP BY g ORDER BY g"
-                  ).fetchall()
+    r = _device(db, con, "SELECT g, count(*), sum(v) FROM t "
+                "WHERE v >= 10000 AND v < 50000 GROUP BY g ORDER BY g")
     for row in r:
-        gi = int(row[0])
-        m = (g == gi) & (v >= 10000) & (v < 50000)
+        m = (g == int(row[0])) & (v >= 10000) & (v < 50000)
         assert int(row[1]) == int(m.sum())
         assert int(row[2]) == int(v[m].astype(np.int64).sum())
     db.close()
 
 
 def test_engine_pallas_scan_agg_with_nulls():
-    """The Pallas tier handles validity planes: sum/count(col) exclude
-    NULLs, count(*) counts all rows (round-3 weak #6: eligibility was
-    'no validity')."""
-    import adacom_tpu as at
-    from adacom_tpu.ops import pallas_scan as ps
-
-    cfg = at.DBConfig()
-    cfg.segment_rows = 4096
-    cfg.pallas_scan_enabled = True
-    cfg.host_scan_segment_limit = 0
-    db = at.Database(config=cfg)
-    con = db.connect()
-    con.query("CREATE TABLE t(i INTEGER)")
+    """Validity planes: sum/count(col) exclude NULLs, count(*) counts all
+    rows."""
     rng = np.random.default_rng(29)
     vals = rng.integers(0, 50_000, 20_000).astype(np.int32)
     null = rng.random(20_000) < 0.15
-    app = con.appender("t")
-    app.append_column("i", vals, validity=~null)
-    app.close()
-    db.catalog.get_column_segment_catalog().compact_all_segments()
-    misses0 = ps._build_runner.cache_info().misses
-    r = con.query("SELECT count(*), count(i), sum(i) FROM t").fetchone()
-    assert ps._build_runner.cache_info().misses > misses0, \
-        "pallas tier did not engage on the validity shape"
+    db, con = _table({"i": vals}, validity={"i": ~null})
+    (r,) = _device(db, con, "SELECT count(*), count(i), sum(i) FROM t")
     v64 = vals.astype(np.int64)
     assert int(r[0]) == 20_000
     assert int(r[1]) == int((~null).sum())
     assert int(r[2]) == int(v64[~null].sum())
-    r = con.query("SELECT count(*), sum(i) FROM t WHERE i >= 10000 AND i < 30000").fetchone()
+    (r,) = _device(db, con, "SELECT count(*), sum(i) FROM t "
+                   "WHERE i >= 10000 AND i < 30000")
     m = (~null) & (vals >= 10000) & (vals < 30000)
     assert int(r[0]) == int(m.sum())
     assert int(r[1]) == int(v64[m].sum())

@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from adacom_tpu import types as tt
-from adacom_tpu.ops import bitpack, segcodec
-from adacom_tpu.parallel import mesh as pmesh
-from adacom_tpu.parallel import ops as pops
+from adacom import types as tt
+from adacom.ops import bitpack, segcodec
+from adacom.parallel import mesh as pmesh
+from adacom.parallel import ops as pops
 
 
 @pytest.fixture(scope="module")

@@ -7,7 +7,7 @@ import json
 import numpy as np
 import pytest
 
-import adacom_tpu as at
+import adacom as at
 
 pytest.importorskip("pyarrow")
 

@@ -5,11 +5,11 @@ import json
 import numpy as np
 import pytest
 
-import adacom_tpu as at
-from adacom_tpu.sql.binder import Binder
-from adacom_tpu.sql.optimizer import optimize
-from adacom_tpu.sql.parser import parse
-from adacom_tpu.sql.serialize import deserialize_plan, serialize_plan
+import adacom as at
+from adacom.sql.binder import Binder
+from adacom.sql.optimizer import optimize
+from adacom.sql.parser import parse
+from adacom.sql.serialize import deserialize_plan, serialize_plan
 
 
 @pytest.fixture(scope="module")
@@ -50,8 +50,8 @@ def test_roundtrip_same_results(db, sql):
     plan = optimize(binder.bind_select(stmts[0]), set(structural))
     payload = json.dumps(serialize_plan(plan, dbi.catalog))
     plan2 = deserialize_plan(json.loads(payload), dbi.catalog)
-    from adacom_tpu.exec.executor import Executor
-    from adacom_tpu.main.result import QueryResult
+    from adacom.exec.executor import Executor
+    from adacom.main.result import QueryResult
 
     r1 = Executor(dbi).execute(plan, lits)
     r2 = Executor(dbi).execute(plan2, lits)

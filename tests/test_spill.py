@@ -4,8 +4,8 @@ merge_sorter capability, VERDICT round 2 #8)."""
 
 import numpy as np
 
-import adacom_tpu as at
-from adacom_tpu.exec import spill
+import adacom as at
+from adacom.exec import spill
 
 
 def test_partitioned_join_pairs_matches_inram(rng):

@@ -10,7 +10,7 @@ import sqlite3
 import numpy as np
 import pytest
 
-import adacom_tpu as at
+import adacom as at
 
 
 @pytest.fixture(scope="module")
@@ -298,7 +298,7 @@ def test_plan_cache_hit():
 def test_errors():
     db = at.Database()
     con = db.connect()
-    from adacom_tpu.main.connection import SQLError
+    from adacom.main.connection import SQLError
     with pytest.raises(SQLError):
         con.query("SELECT * FROM missing_table")
     with pytest.raises(SQLError):
@@ -335,8 +335,8 @@ def test_streaming_join_pipeline_engages():
     hash table (pipeline_executor.cpp parity); dist_stats proves it."""
     import numpy as np
 
-    import adacom_tpu as at
-    from adacom_tpu import native
+    import adacom as at
+    from adacom import native
 
     if not native.available():
         import pytest

@@ -3,12 +3,12 @@ nulls, 64-bit planes, paging, adaptive policy."""
 
 import numpy as np
 
-from adacom_tpu import types as tt
-from adacom_tpu.config import DBConfig
-from adacom_tpu.catalog.segment_catalog import ColumnSegmentCatalog
-from adacom_tpu.storage.buffer import BufferManager
-from adacom_tpu.storage.segment import ColumnSegment
-from adacom_tpu.storage.table import Table
+from adacom import types as tt
+from adacom.config import DBConfig
+from adacom.catalog.segment_catalog import ColumnSegmentCatalog
+from adacom.storage.buffer import BufferManager
+from adacom.storage.segment import ColumnSegment
+from adacom.storage.table import Table
 
 
 def _mk(config=None):
@@ -171,7 +171,7 @@ def test_zonemap_fresh_after_tail_reseal():
     bug found by tools/fuzz_dml.py seed 1)."""
     import numpy as np
 
-    import adacom_tpu as at
+    import adacom as at
 
     db = at.Database(config=at.DBConfig(segment_rows=1024))
     con = db.connect()
@@ -207,7 +207,7 @@ def test_table_snapshot_survives_tail_unseal():
     stays fully resolvable while the writer pops/reseals the partial tail
     segment (unseal_last_partial) — the live list shrinks, the snapshot
     tuple does not."""
-    import adacom_tpu as at
+    import adacom as at
 
     cfg = at.DBConfig()
     cfg.segment_rows = 256
@@ -244,8 +244,8 @@ def test_table_snapshot_survives_tail_unseal():
 def test_truncate_preserves_indexes_and_unique():
     """DELETE without WHERE must keep indexes live (round-4 repro: the
     drop-and-recreate truncate silently dropped UNIQUE enforcement)."""
-    import adacom_tpu as at
-    from adacom_tpu.storage.index import ConstraintViolation
+    import adacom as at
+    from adacom.storage.index import ConstraintViolation
 
     db = at.Database()
     try:

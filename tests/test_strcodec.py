@@ -5,9 +5,9 @@ codec's adopt-only-when-smaller gate."""
 import numpy as np
 import pytest
 
-import adacom_tpu as at
-from adacom_tpu import native
-from adacom_tpu.storage.table import StringDictionary
+import adacom as at
+from adacom import native
+from adacom.storage.table import StringDictionary
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native library unavailable")

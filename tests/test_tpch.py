@@ -8,8 +8,8 @@ import sqlite3
 import numpy as np
 import pytest
 
-import adacom_tpu as at
-from adacom_tpu.bench import tpch
+import adacom as at
+from adacom.bench import tpch
 
 
 @pytest.fixture(scope="module")

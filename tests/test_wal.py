@@ -9,7 +9,7 @@ import os
 import numpy as np
 import pytest
 
-import adacom_tpu as at
+import adacom as at
 
 
 def _open(path, **cfg_kw):
@@ -107,7 +107,7 @@ def test_torn_tail_record(tmp_path):
 
 
 def test_checkpoint_abort_recovers(tmp_path):
-    from adacom_tpu.main.database import CheckpointAbort
+    from adacom.main.database import CheckpointAbort
 
     db, con = _open(tmp_path / "d")
     con.query("CREATE TABLE t(i INTEGER)")

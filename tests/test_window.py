@@ -8,7 +8,7 @@ import sqlite3
 import numpy as np
 import pytest
 
-import adacom_tpu as at
+import adacom as at
 
 
 @pytest.fixture(scope="module")

@@ -18,8 +18,8 @@ jax.config.update("jax_platforms", "cpu")  # host latency tier exercises this
 
 import numpy as np  # noqa: E402
 
-import adacom_tpu as at  # noqa: E402
-from adacom_tpu.bench.zipf import ZipfSampler  # noqa: E402
+import adacom as at  # noqa: E402
+from adacom.bench.zipf import ZipfSampler  # noqa: E402
 
 
 def main():

@@ -1,35 +1,33 @@
 #!/usr/bin/env python
-"""Run the 43-query ClickBench suite (reference SQL text) and write
-CLICKBENCH.tsv (benchmark-runner TSV schema) + a summary line. One
-shared load; nruns hot runs per query after a discarded cold run."""
+"""Run the 43-query ClickBench suite (reference SQL text) on JAX's default
+device and write CLICKBENCH.tsv (benchmark-runner TSV schema, with a header
+naming the device) + a summary line. One shared load; nruns hot runs per
+query after a discarded cold run. --verify checks every query against the
+sqlite3 oracle first.
+
+Usage: python tools/clickbench_run.py [scale] [nruns] [--verify]"""
+import os
 import sys
 import time
 
-import os
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+import jax  # noqa: E402
 
-# TPU mode (--tpu / ADACOM_CB_TPU=1): real chip serves the device tiers;
-# writes CLICKBENCH_TPU.tsv. Default: host lane, CLICKBENCH.tsv.
-TPU_MODE = "--tpu" in sys.argv or os.environ.get("ADACOM_CB_TPU") == "1"
+import adacom as at  # noqa: E402
+from adacom.bench import clickbench as cb  # noqa: E402
+
 VERIFY = "--verify" in sys.argv
-sys.argv = [a for a in sys.argv if a not in ("--tpu", "--verify")]
-if not TPU_MODE:
-    jax.config.update("jax_platforms", "cpu")
-
-import numpy as np  # noqa: E402
-
-import adacom_tpu as at  # noqa: E402
-from adacom_tpu.bench import clickbench as cb  # noqa: E402
+sys.argv = [a for a in sys.argv if a != "--verify"]
 
 
 def main():
     scale = float(sys.argv[1]) if len(sys.argv) > 1 else 0.1
     nruns = int(sys.argv[2]) if len(sys.argv) > 2 else 3
     data = cb.generate(scale)
+    dev = jax.devices()[0]
+    device = f"{dev.platform} ({dev.device_kind}) x{len(jax.devices())}"
     db = at.Database()
-    if not TPU_MODE:
-        db.config.pallas_scan_enabled = False
     con = db.connect()
     cb.load_into_engine(con, data)
     lite = None
@@ -63,10 +61,8 @@ def main():
                        f"{cat.get_total_data_size()}")
         tot += best
         print(f"q{qid:02d} {best:.3f}s", file=sys.stderr, flush=True)
-    out_name = "CLICKBENCH_TPU.tsv" if TPU_MODE else "CLICKBENCH.tsv"
-    with open(out_name, "w") as f:
-        lane = ("real TPU chip lane" if TPU_MODE
-                else "host tier on this container's 2 vCPUs")
+    with open("CLICKBENCH.tsv", "w") as f:
+        lane = f"on {device}"
         ver = f", all {rows}-row results oracle-verified" if VERIFY else ""
         f.write(f"# ClickBench 43 queries, {rows} rows (scale {scale}), "
                 f"{lane}{ver}\n")

@@ -17,7 +17,7 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
-import adacom_tpu as at  # noqa: E402
+import adacom as at  # noqa: E402
 
 
 def norm(rows):

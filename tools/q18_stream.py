@@ -11,13 +11,12 @@ CHILD = """
 import json, resource, sys, time
 import jax
 jax.config.update("jax_platforms", "cpu")
-import adacom_tpu as at
-from adacom_tpu.bench import tpch
+import adacom as at
+from adacom.bench import tpch
 
 stream = sys.argv[1] == "on"
 data = tpch.generate(sf=1.0)
 db = at.Database()
-db.config.pallas_scan_enabled = False
 db.config.streaming_agg_sink_enabled = stream
 con = db.connect()
 tpch.load_into_engine(con, data)

@@ -19,8 +19,8 @@ def main():
     ap.add_argument("--pattern", default=None,
                     help="only classes whose name contains this")
     args = ap.parse_args()
-    from adacom_tpu.bench import succinct_benchmarks  # noqa: F401
-    from adacom_tpu.bench.runner import REGISTRY, run_benchmark
+    from adacom.bench import succinct_benchmarks  # noqa: F401
+    from adacom.bench.runner import REGISTRY, run_benchmark
 
     rows = [f"# all [succinct] benchmark classes at scale {args.scale} "
             f"({args.nruns} hot runs), host lane"]

@@ -13,7 +13,7 @@ import time
 
 import numpy as np
 
-import adacom_tpu as at
+import adacom as at
 
 
 def one_case(n_rows: int, card: int):

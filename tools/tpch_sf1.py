@@ -1,29 +1,23 @@
 #!/usr/bin/env python
-"""Run the 22 TPC-H queries at SF1 and write TPCH_SF1.tsv (benchmark-
-runner TSV schema: name, run, timing, sizeInBytes, MemoryAllocation)
-plus TPCH_SF1_COMPARE.md with the reference-runtime comparison
-(/root/reference/TPCH_runtime.txt). One shared load, nruns hot runs per
-query after a discarded cold run (benchmark_runner.cpp:120-131)."""
+"""Run the 22 TPC-H queries at SF1 on JAX's default device and write
+TPCH_SF1.tsv (benchmark-runner TSV schema: name, run, timing, sizeInBytes,
+MemoryAllocation) plus TPCH_SF1_COMPARE.md with the reference-runtime
+comparison (the reference's TPCH_runtime.txt). One shared load, nruns hot
+runs per query after a discarded cold run (benchmark_runner.cpp:120-131).
+Both files name the device the run used.
+
+Usage: python tools/tpch_sf1.py [nruns]"""
+import os
 import sys
 import time
 
-import os
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-
-# default: host tier on CPU (see COMPARE.md note). TPU mode (--tpu or
-# ADACOM_TPCH_TPU=1): the real chip serves the Pallas scan/agg tiers
-# (multi-aggregate grouped fused scan for Q1-class queries).
-TPU_MODE = "--tpu" in sys.argv or os.environ.get("ADACOM_TPCH_TPU") == "1"
-if TPU_MODE:
-    sys.argv = [a for a in sys.argv if a != "--tpu"]
-else:
-    jax.config.update("jax_platforms", "cpu")
-
+import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
-import adacom_tpu as at  # noqa: E402
-from adacom_tpu.bench import tpch  # noqa: E402
+import adacom as at  # noqa: E402
+from adacom.bench import tpch  # noqa: E402
 
 REF = {1: 0.094, 2: 0.038, 3: 0.045, 4: 0.066, 5: 0.062, 6: 0.017,
        7: 0.073, 8: 0.059, 9: 0.113, 10: 0.072, 11: 0.027, 12: 0.055,
@@ -34,11 +28,9 @@ REF = {1: 0.094, 2: 0.038, 3: 0.045, 4: 0.066, 5: 0.062, 6: 0.017,
 def main():
     nruns = int(sys.argv[1]) if len(sys.argv) > 1 else 3
     data = tpch.generate(sf=1.0)
+    dev = jax.devices()[0]
+    device = f"{dev.platform} ({dev.device_kind}) x{len(jax.devices())}"
     db = at.Database()
-    if not TPU_MODE:
-        # clean host-tier record: interpret-mode Pallas on CPU is not the
-        # host tier and not the device tier
-        db.config.pallas_scan_enabled = False
     con = db.connect()
     tpch.load_into_engine(con, data)
     db.catalog.get_column_segment_catalog().compact_all_segments()
@@ -59,28 +51,18 @@ def main():
         means[qid] = ts
         print(f"Q{qid:02d} mean {np.mean(ts):.3f}s "
               f"(+/- {np.std(ts):.3f})", file=sys.stderr, flush=True)
-    out_tsv = "TPCH_SF1_TPU.tsv" if TPU_MODE else "TPCH_SF1.tsv"
-    with open(out_tsv, "w") as f:
-        f.write("\n".join(rows_tsv) + "\n")
+    with open("TPCH_SF1.tsv", "w") as f:
+        f.write(f"# device: {device}\n" + "\n".join(rows_tsv) + "\n")
     lines = [
-        "# TPC-H SF1: adacom_tpu vs the reference's committed runtimes",
+        "# TPC-H SF1: adacom vs the reference's committed runtimes",
         "",
-        "Reference numbers: /root/reference/TPCH_runtime.txt (means of 5",
+        "Reference numbers: the reference's TPCH_runtime.txt (means of 5",
         "runs, threads = hardware concurrency on an unspecified server).",
-        ("This run: synthetic SF1 corpus (bench/tpch.py), REAL TPU chip"
-         if TPU_MODE else
-         "This run: synthetic SF1 corpus (bench/tpch.py), host execution"),
-        ("serving the Pallas scan/agg tiers (other shapes ride the host"
-         if TPU_MODE else
-         "tier on THIS container's 2 vCPUs (the TPU tier serves scan/agg"),
-        ("tier on 2 vCPUs), mean of "
-         if TPU_MODE else
-         "shapes; joins ride the native C++ host path), mean of ")
-        + f"{nruns} hot runs",
-        "after a discarded cold run. All 22 results verified against the",
-        "sqlite oracle at SF1 (TPCH_SF1_VERIFY.json).",
+        f"This run: synthetic SF1 corpus (bench/tpch.py) on {device},",
+        f"mean of {nruns} hot runs after a discarded cold run.",
+        "tools/verify_sf1.py checks the 22 results against sqlite3.",
         "",
-        "| Query | adacom_tpu (s) | min..max | reference (s) | ratio |",
+        "| Query | adacom (s) | min..max | reference (s) | ratio |",
         "|---|---|---|---|---|",
     ]
     tot = rtot = 0.0
@@ -94,8 +76,7 @@ def main():
                      f"| {r:.3f} | {m / r:.1f}x |")
     lines.append(f"| **total** | **{tot:.2f}** |  | **{rtot:.2f}** | "
                  f"**{tot / rtot:.1f}x** |")
-    out_md = "TPCH_SF1_TPU_COMPARE.md" if TPU_MODE else "TPCH_SF1_COMPARE.md"
-    with open(out_md, "w") as f:
+    with open("TPCH_SF1_COMPARE.md", "w") as f:
         f.write("\n".join(lines) + "\n")
     print(f"total {tot:.2f}s vs reference {rtot:.2f}s")
 

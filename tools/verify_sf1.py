@@ -11,8 +11,8 @@ import time
 
 import numpy as np
 
-import adacom_tpu as at
-from adacom_tpu.bench import tpch
+import adacom as at
+from adacom.bench import tpch
 
 
 def _norm(rows):
